@@ -1,13 +1,14 @@
-"""cryo_ralib_tpu — TPU-native 2D cryo-EM particle alignment.
+"""cryo_ralib_tpu — 2D cryo-EM particle alignment in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 phonchi/Cryo-RAlib (GPU-accelerated multireference and reference-free 2D
 alignment for cryo-EM): polar ring resampling, FFT rotational
 cross-correlation with mirror search over an x/y shift grid,
 argmax + parabolic angle refinement, batch rotate/shift transforms,
 even/odd class-average accumulation with FSC-driven reference filtering —
-designed TPU-first (fused scan over the shift grid, MXU one-hot class
-sums, `shard_map`/psum data parallelism over the particle axis).
+one jitted step per iteration (fused scan over the shift grid, one-hot
+matmul class sums, data parallelism over the particle axis of a device
+mesh).  ``models.steps.select_engine`` picks the search engine.
 """
 
 from .config import AlignConfig  # noqa: F401

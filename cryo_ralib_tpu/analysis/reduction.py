@@ -1,11 +1,11 @@
 """Multilinear PCA and two-stage dimension reduction for aligned stacks.
 
-TPU-first rebuild of ``MPCA`` / ``TwoSDR`` (reference
+Rebuild of ``MPCA`` / ``TwoSDR`` (reference
 src/utils_ralib.py:436-564, used by notebook 03 before t-SNE/clustering):
 the alternating row/column subspace iteration over an (N, p, q) aligned
 particle stack.  The reference builds giant (p*n, q) reshapes on the host
 and calls sparse ``eigs``; here every scatter matrix is a batched einsum
-(MXU work when run on an accelerator) and the eigendecompositions are
+(matmul work on an accelerator) and the eigendecompositions are
 dense ``eigh`` on the tiny (p, p)/(q, q) matrices — identical math, no
 sparse solver, device-resident until the final factors.
 """

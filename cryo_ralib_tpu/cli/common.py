@@ -2,9 +2,9 @@
 
 Replaces the reference's per-CLI ``main()`` prologue (MPI setup, GPU
 communicator surgery, RAM-budgeted batched stack reads and the particle
-re-scatter, test_mref_gpu_align.py:1136-1464): on TPU one process owns
-all local chips, the stack is loaded once and sharded over a 'dp' mesh,
-and there is nothing to scatter by hand.
+re-scatter, test_mref_gpu_align.py:1136-1464): one process owns all
+local GPUs, the stack is loaded once and sharded over a 'dp' mesh, and
+there is nothing to scatter by hand.
 """
 
 from __future__ import annotations
@@ -49,11 +49,11 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     schedule defaults "4 2 1 1"/"2 1 0.5 0.25" whose first entries are
     xr=4, ts=2, and center=-1)."""
     p.add_argument("--ir", type=_intish, default=1,
-                   help="inner ring radius (Numrinit first_ring; honored "
-                        "since r4 — the reference GPU config ignores it)")
+                   help="inner ring radius (Numrinit first_ring; the "
+                        "reference GPU config ignores it)")
     p.add_argument("--ou", type=_intish, default=-1, help="outer ring radius")
     p.add_argument("--rs", type=_intish, default=1,
-                   help="ring step (Numrinit rstep; honored since r4)")
+                   help="ring step (Numrinit rstep)")
     p.add_argument("--xr", type=_sched, default=4.0 if reffree else 0.0,
                    help="x shift search range (reffree accepts the "
                         "reference's schedule string; first entry used)")
@@ -103,15 +103,13 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     p.add_argument("--gpu_info", action="store_true",
                    help="print accelerator info and exit (print_gpu_info)")
     p.add_argument("--devices", type=int, default=0,
-                   help="number of chips to shard over (0 = all)")
+                   help="number of devices to shard over (0 = all)")
     p.add_argument("--sampler", default="auto",
-                   choices=["auto", "fused", "template", "matmul", "gather"],
-                   help="sampling engine: fused = Pallas kernel "
-                        "(single-chip TPU), template = pixel-domain "
-                        "template matmul (TPU + GSPMD meshes), matmul = "
-                        "XLA tent-matmul fallback, gather = exact "
-                        "texture semantics (CPU); auto picks by backend "
-                        "and geometry")
+                   choices=["auto", "template", "matmul", "gather"],
+                   help="sampling engine: template = pixel-domain "
+                        "template matmul, matmul = tent-matmul, gather = "
+                        "exact texture semantics; auto picks by platform "
+                        "and geometry (models.steps.select_engine)")
     p.add_argument("--ring_scheme", default="cuda",
                    choices=["cuda", "eman2"],
                    help="polar ring convention: cuda = uniform 256-sample "
@@ -166,7 +164,7 @@ def validate_reffree_flags(args):
     """Fail loudly on flags that are not implemented.
 
     ``--mode=H``, ``--nomirror``, ``--random_method=SHC/SCF``,
-    ``--Fourvar`` and ``--dst`` are all real capability since r3 (the
+    ``--Fourvar`` and ``--dst`` are all real capability (the
     reference GPU path silently ignores them; its CPU twin ``ali2d_base``
     honors them, test_reffree_gpu_align.py:714,724,777-831,841-846,921).
     The only remaining rejection is the undefined --dst + --random_method
@@ -205,7 +203,7 @@ def load_ctf_params(args, n: int) -> dict | None:
         # DetectorPixelSize/Magnification; --apix overrides
         rows = parse_ctf_star(star.df, d=0, angpix=args.apix)
         # parse_ctf_star zero-fills absent columns; a missing DefocusU
-        # would silently run an all-zero (nonsense) CTF model (ADVICE r2)
+        # would silently run an all-zero (nonsense) CTF model
         if "_rlnDefocusU" not in star.df or not np.any(rows[:, 2]):
             print(f"ERROR: {path} has no usable _rlnDefocusU column — "
                   "cannot build a CTF model", file=sys.stderr)
@@ -219,7 +217,7 @@ def load_ctf_params(args, n: int) -> dict | None:
         cs = float(rows[0, 6]) or args.Cs
         w = float(rows[0, 7]) or args.ac
         # per-particle phase shift (Volta phase plates): keep the full
-        # column; CtfContext broadcasts it (ADVICE r2)
+        # column; CtfContext broadcasts it
         phase_shift = rows[:, 8]
     else:
         # ndmin=2 keeps a single-column file as (N, 1), not a row vector
@@ -307,6 +305,9 @@ def check_outdir(outdir: str):
 
 
 def make_mesh_arg(n_devices: int):
+    """The --devices mesh: None for one device, else a 'dp' mesh over
+    the first ``n_devices`` (0 = all).  Asking for more devices than
+    exist is an error, not a smaller run."""
     import jax
 
     from ..parallel.mesh import make_mesh
@@ -314,9 +315,14 @@ def make_mesh_arg(n_devices: int):
     total = len(jax.devices())
     if n_devices <= 0:
         n_devices = total
+    if n_devices > total:
+        print(f"ERROR: --devices={n_devices} but only {total} "
+              f"{jax.devices()[0].platform} device(s) exist",
+              file=sys.stderr)
+        raise SystemExit(2)
     if n_devices == 1:
         return None
-    return make_mesh(min(n_devices, total))
+    return make_mesh(n_devices)
 
 
 def writeback_headers(stack_path: str, table: np.ndarray, assign=None):

@@ -1,6 +1,6 @@
 """Multireference 2D alignment CLI.
 
-TPU-native replacement for ``mpirun -np N test_mref_gpu_align.py
+JAX replacement for ``mpirun -np N test_mref_gpu_align.py
 stack refs outdir --ou=36 --xr=3 ...`` (reference README.md:54-59;
 main() at test_mref_gpu_align.py:1136): same positional arguments, same
 flags, same output artifacts (``aqm%03d.hdf`` class averages with
@@ -25,7 +25,7 @@ from .common import (add_common_flags, check_outdir, load_ctf_params,
 def build_parser():
     p = argparse.ArgumentParser(
         prog="cryo-ralib-mref",
-        description="TPU multireference 2D alignment (Cryo-RAlib rebuild)")
+        description="Multireference 2D alignment (Cryo-RAlib rebuild)")
     p.add_argument("stack", help="particle stack (.hdf/.mrcs)")
     p.add_argument("refs", help="initial references (.hdf/.mrcs)")
     p.add_argument("outdir", help="output directory (must not exist)")
@@ -41,6 +41,9 @@ def main(argv=None):
     if args.gpu_info:
         print_device_info()
         return 0
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.resume:
         import os
         os.makedirs(args.outdir, exist_ok=True)

@@ -1,6 +1,6 @@
 """Reference-free 2D alignment CLI (ISAC-style pre-alignment).
 
-TPU-native replacement for ``mpirun test_reffree_gpu_align.py stack
+JAX replacement for ``mpirun test_reffree_gpu_align.py stack
 outdir --ou=36 --ts=1`` (main() at test_reffree_gpu_align.py:911): same
 arguments and artifacts (``aqc.hdf``, ``aqf.hdf``, ``aqfinal.hdf``,
 ``resolution%03d``, ``initial2Dparams.txt``).
@@ -22,7 +22,7 @@ from .common import (add_common_flags, check_outdir, load_ctf_params,
 def build_parser():
     p = argparse.ArgumentParser(
         prog="cryo-ralib-reffree",
-        description="TPU reference-free 2D alignment (Cryo-RAlib rebuild)")
+        description="Reference-free 2D alignment (Cryo-RAlib rebuild)")
     p.add_argument("stack", help="particle stack (.hdf/.mrcs)")
     p.add_argument("outdir", help="output directory (must not exist)")
     p.add_argument("maskfile", nargs="?", default=None,
@@ -37,6 +37,9 @@ def main(argv=None):
     if args.gpu_info:
         print_device_info()
         return 0
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     validate_reffree_flags(args)
     if args.resume:
         import os

@@ -1,6 +1,6 @@
 """Alignment configuration and search-grid geometry.
 
-TPU-native equivalent of the reference's ``AlignConfig`` struct and the
+Equivalent of the reference's ``AlignConfig`` struct and the
 polar/shift grid generators (reference: ``cuda/gpu_aln_common.h:62-83``,
 ``cuda/gpu_aln_common.cu:39-84``).  Unlike the CUDA build, the config is a
 frozen dataclass whose derived grids are plain numpy arrays baked into the
@@ -60,8 +60,8 @@ class AlignConfig:
             + ``ringwe`` weights (test_mref_gpu_align.py:741-750), for
             users who need EMAN2-CPU-exact numbers.  Under "eman2" the
             ``ring_len`` field is derived (maxrin, the longest ring) and
-            the search runs ``ops.eman_search`` (fused/template gate
-            themselves out).
+            the search runs the template engine's eman2 build or
+            ``ops.eman_search``.
     """
 
     img_dim: int

@@ -1,7 +1,7 @@
 """Iteration checkpoint / resume for the alignment drivers.
 
 The reference has no resume logic — only per-iteration artifacts
-(aqm%03d.hdf etc., SURVEY.md §5 "Checkpoint/resume").  Long TPU runs
+(aqm%03d.hdf etc., SURVEY.md §5 "Checkpoint/resume").  Long runs
 want real resumability, so the drivers write a compact state file per
 iteration and can continue from it: per-particle AlignParams, current
 references/average, the driver's scalar state, and the reseeding RNG

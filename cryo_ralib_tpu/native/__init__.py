@@ -2,7 +2,7 @@
 
 The reference drives its C++/CUDA core through ctypes
 (test_mref_gpu_align.py:83-149); here the native side is the host
-runtime around the TPU compute path — currently the threaded MRC stack
+runtime around the device compute path — currently the threaded MRC stack
 reader (native/stack_io.cpp).  The library is built on demand with the
 repo Makefile and cached; everything degrades gracefully to the pure
 numpy readers when no compiler is available.

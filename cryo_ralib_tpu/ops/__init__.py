@@ -1,4 +1,4 @@
-"""TPU-native compute ops for 2D cryo-EM particle alignment."""
+"""JAX compute ops for 2D cryo-EM particle alignment."""
 
 from .ccf import (  # noqa: F401
     ccf_rows,
@@ -10,7 +10,6 @@ from .ccf import (  # noqa: F401
 from .center import center_2D, center_of_gravity  # noqa: F401
 from .classavg import class_sum_oe  # noqa: F401
 from .filters import filt_btwl, filt_tanl, filt_tanl_dyn, fshift, tanl_response  # noqa: F401
-from .fused_search import FusedTables, fused_search, fused_supported  # noqa: F401
 from .fsc import fit_tanh, fsc, fsc_mask, write_fsc  # noqa: F401
 from .interp import bilinear_sample, quadri_sample  # noqa: F401
 from .masks import infomask, model_circle, normalize_mask  # noqa: F401

@@ -4,8 +4,8 @@ Equivalent of the reference's two accumulation paths — the CuPy
 ``kernel_sum_oe`` zero-copy sums (test_mref_gpu_align.py:48-80) and the
 CUDA ``cu_average_batch[_m]`` kernels (cuda/gpu_aln_noref.cu:1199-1274).
 
-On TPU the per-class masked sums become a single one-hot matmul over the
-particle axis (MXU work, no dynamic boolean gathers), which is also the
+The per-class masked sums become a single one-hot matmul over the
+particle axis (no dynamic boolean gathers), which is also the
 shape that ``psum``s cleanly across a particle-sharded mesh.
 
 Parity convention: even/odd by the particle's *global stack index* parity
@@ -46,8 +46,8 @@ def class_sum_oe(images, ref_id, n_classes: int, global_index=None, valid=None):
     if valid is not None:
         onehot = onehot * jnp.asarray(valid, images.dtype)[:, None]
         class_onehot = class_onehot * jnp.asarray(valid, jnp.int32)[:, None]
-    # HIGHEST: class sums must accumulate in f32 on the MXU — the default
-    # TPU bf16 passes visibly perturb the averages
+    # HIGHEST: class sums accumulate in full f32 — reduced-precision
+    # (bf16 or TF32) products visibly perturb the averages
     sums = jnp.einsum("nc,nhw->chw", onehot, images,
                       precision=jax.lax.Precision.HIGHEST)
     counts = jnp.sum(class_onehot, axis=0)
@@ -64,8 +64,7 @@ def class_sum_transform_mm(images, params, n_classes: int,
     for every particle, so the one-hot class sum runs on the pass-4
     *spectra* over (class, parity, mirror) slots and the inverse DFT /
     flip apply once to the (4K, P, F) sums.  This removes the (N, P, P)
-    transformed-stack materialization + mirror select from HBM — the
-    end-to-end overhead VERDICT r2 weak #2 points at
+    transformed-stack materialization + mirror select from device memory
     (reference analog: ``mref_align_run`` returns the transformed batch
     for CuPy sums, cuda/gpu_aln_noref.cu:389-416 + kernel_sum_oe).
     """

@@ -74,7 +74,7 @@ def filt_ctf(images, ctf):
 def class_ctf2_sum(ctf, ref_id, n_classes: int):
     """Per-class sum of ctf^2: (N, H, Fw), (N,) -> (K, H, Fw).
 
-    One-hot matmul like ``class_sum_oe`` — the MXU/GSPMD-friendly
+    One-hot matmul like ``class_sum_oe`` — the GSPMD-friendly
     segment sum (no parity split: Wiener restores the *combined*
     average; FSC keeps using the plain even/odd sums)."""
     onehot = jax.nn.one_hot(ref_id, n_classes, dtype=ctf.dtype)  # (N, K)
@@ -112,8 +112,8 @@ class CtfContext:
         dfu = np.atleast_1d(np.asarray(p.pop("dfu"), np.float64))
         dfv = np.atleast_1d(np.asarray(p.pop("dfv", dfu), np.float64))
         dfang = np.atleast_1d(np.asarray(p.pop("dfang", 0.0), np.float64))
-        # phase shift is per-particle capable (Volta phase plates,
-        # ADVICE r2): it rides the defocus table as a fourth column
+        # phase shift is per-particle capable (Volta phase plates): it
+        # rides the defocus table as a fourth column
         phase = np.atleast_1d(np.asarray(p.pop("phase_shift", 0.0),
                                          np.float64))
         n = max(dfu.size, dfv.size, dfang.size, phase.size)

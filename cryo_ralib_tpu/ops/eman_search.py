@@ -8,7 +8,7 @@ at :771) rather than the reference GPU path's uniform-256 scheme.  The
 semantics contract is ``utils.oracle.align_particle_eman_np``
 (SURVEY.md §3.3).
 
-TPU-first formulation: rings grouped by their (power-of-two) length —
+Formulation: rings grouped by their (power-of-two) length —
 a Numrinit plan has only ~log2(maxrin) distinct lengths — and each
 group runs the standard dense pipeline at its own length:
 
@@ -126,9 +126,9 @@ def rotational_shift_search_eman(
     ``prepare_ref_spectra_eman``.
 
     ``sampler``: "matmul" = accumulated-shift pre-translate + constant
-    tent matmuls (TPU fast path; exact for integer accumulated shifts),
+    tent matmuls (exact for integer accumulated shifts),
     "gather" = per-sample bilinear reads with the accumulated shift
-    folded into the center (exact texture semantics, fast on CPU).
+    folded into the center (exact texture semantics).
     Both loop over the grid's dy values with all dx candidates per
     step (x-major global shift index, config.shifts order).
     """

@@ -8,7 +8,7 @@ image as ``varf.hdf`` (test_reffree_gpu_align.py:777-831; varf2d itself
 lives in SPHIRE ``sp_statistics``, outside the reference repo).  The GPU
 path never implemented it.
 
-TPU-native rebuild: per frequency bin of the rfft2 spectrum of each
+Rebuild: per frequency bin of the rfft2 spectrum of each
 *aligned* (transformed, masked) particle, accumulate the complex sum and
 the power sum — two (H, F) f32 accumulator pairs that stream over
 particle batches and psum over a dp mesh — and finalize the unbiased
@@ -48,8 +48,9 @@ def fourier_moments(images, params: AlignParams, mask=None, valid=None,
       params: AlignParams with (N,) fields.
       mask: optional (H, W) real-space mask.
       valid: optional (N,) 0/1 weights (streaming pad exclusion).
-      engine: "shear" (FFT-shear, the TPU path) or "exact" (bilinear
-        ``transform_batch``, matches the CPU oracle bit-for-bit).
+      engine: "shear" (FFT-shear, the matmul engines' transform) or
+        "exact" (bilinear ``transform_batch``, matches the CPU oracle
+        bit-for-bit).
     Returns:
       (sum_re, sum_im, sum_sq, n): (H, F) f32 x3 and the scalar count.
     """

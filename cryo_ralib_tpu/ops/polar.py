@@ -1,6 +1,6 @@
 """Polar ring resampling of particle images.
 
-TPU-native equivalent of ``cu_resample_to_polar``
+Equivalent of ``cu_resample_to_polar``
 (cuda/gpu_aln_noref.cu:818-879): every image is sampled on ``ring_num``
 concentric rings of ``ring_len`` points each, centered at
 ``img_dim/2 + global_shift + per_particle_shift`` with bilinear

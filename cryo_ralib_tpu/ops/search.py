@@ -1,6 +1,6 @@
 """Fused rotational + translational + mirror alignment search.
 
-This is the TPU rewrite of the reference's hot loop
+This is the JAX rewrite of the reference's hot loop
 (``mref_align_run``/``pre_align_run``, cuda/gpu_aln_noref.cu:389-546):
 
     for each shift: polar-resample -> ring FFT -> ccf vs refs (+mirror)
@@ -10,10 +10,10 @@ The CUDA version materializes the full ccf table
 ``(ring_len+2) * sbj * ref * shifts * 2`` floats and argmaxes it.  Here the
 shift axis is processed in chunks inside a ``lax.scan`` that keeps a
 *running* per-particle best — value, decoded indices, and the single
-best angle row needed later for parabolic refinement — so HBM never holds
-more than one chunk of ccf rows.  This removes the reference's main memory
-ceiling (its N10 size-check machinery) and is the main speed lever on TPU
-(SURVEY.md §7 "hard parts").
+best angle row needed later for parabolic refinement — so device memory
+never holds more than one chunk of ccf rows.  This removes the reference's
+main memory ceiling (its N10 size-check machinery; SURVEY.md §7 "hard
+parts").
 
 All shapes are static; the scan length is ceil(S / chunk) with masked
 padding, so one compilation serves every iteration.
@@ -82,8 +82,7 @@ def prepare_ref_spectra(refs, cfg: AlignConfig):
     Matches ``ref_batch->resample_to_polar(0,0,0) + apply_FFT`` at the top
     of every *_run call (cuda/gpu_aln_noref.cu:396-397) with the ring
     weights folded in.  Sampling runs as full-precision tent matmuls
-    (== the bilinear gather numerically; gathers are pathologically slow
-    on TPU even for K images).
+    (== the bilinear gather numerically).
     """
     from .polar_mm import polar_resample_mm
 
@@ -231,7 +230,8 @@ def rotational_shift_search_mm(
     fast: bool = True,
     angle_mask=None,
 ) -> SearchResult:
-    """Gather-free variant of ``rotational_shift_search`` (TPU fast path).
+    """Gather-free variant of ``rotational_shift_search`` (the matmul
+    engine).
 
     Identical search semantics, different sampling engine: the particle
     stack is bilinear-pre-translated by each particle's accumulated
@@ -243,7 +243,7 @@ def rotational_shift_search_mm(
     dx at once); global shift index = xi * n_dy_vals + yi per the
     x-major grid order (config.shifts).
 
-    ``fast=True`` runs the sampling matmuls in bf16xf32 (MXU native);
+    ``fast=True`` runs the sampling matmuls in bf16xf32 (tensor cores);
     the quantization error is the same order as the CUDA texture
     hardware's 9-bit lerp weights.
     """
@@ -385,8 +385,8 @@ def rotational_shift_search_shc(
     reference scans in random order, this implementation is deterministic
     (priority order) — same hill-climbing contract, reproducible tests.
 
-    This is the exact-gather sampling engine (fast on CPU); the TPU fast
-    paths are ``rotational_shift_search_shc_mm`` and
+    This is the exact-gather sampling engine; the matmul and template
+    engines are ``rotational_shift_search_shc_mm`` and
     ``ops.template_search.template_search_shc`` (same fold, same pick).
 
     Returns ``(SearchResult, found)`` where ``found`` is a (N,) bool mask;
@@ -452,7 +452,7 @@ def rotational_shift_search_shc_mm(
     per_particle_ref: bool = False,
     fast: bool = True,
 ):
-    """Gather-free SHC search (TPU fast path).
+    """Gather-free SHC search (the matmul engine).
 
     Same hill-climbing pick as ``rotational_shift_search_shc`` (the fold
     is shared), same sampling engine as ``rotational_shift_search_mm``:
@@ -526,7 +526,7 @@ def decode_params(
         # 7-point window around the peak, circular in angle (modulo
         # ring_len, as in the CUDA code which wraps with % ring_len).
         # Gather-free: a one-hot of the peak bin dotted against 7 static
-        # rolls of the row — dynamic per-particle gathers are slow on TPU.
+        # rolls of the row, no dynamic per-particle gather.
         onehot = (jnp.arange(ring_len, dtype=jnp.int32)[None, :]
                   == result.best_aidx[:, None]).astype(result.best_row.dtype)
         cols = []
@@ -555,7 +555,8 @@ def decode_params(
     shift_grid = jnp.asarray(cfg.shifts)  # (S, 2)
     s_onehot = (jnp.arange(shift_grid.shape[0], dtype=jnp.int32)[None, :]
                 == result.best_sidx[:, None]).astype(jnp.float32)
-    ds = s_onehot @ shift_grid  # (N, 2)
+    ds = jnp.matmul(s_onehot, shift_grid,
+                    precision=jax.lax.Precision.HIGHEST)  # (N, 2)
     dsx = ds[:, 0]
     dsy = ds[:, 1]
     limit = cfg.shift_limit

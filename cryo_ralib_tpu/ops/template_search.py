@@ -1,7 +1,7 @@
 """Brute-force template-matmul search engine (``sampler="template"``).
 
 The whole (mirror x shift x ref x angle) ccf table is computed as ONE
-pixel-domain matmul on the MXU:
+pixel-domain bf16 matmul (tensor cores on the GPU):
 
     ccf[n, m, s, k, l] = <img_t[n], T[m, s, k, l]>
 
@@ -11,22 +11,19 @@ where ``img_t`` is the accumulated-shift pre-translated particle
 angle-rolled polar reference rings, spatially shifted by the integer
 search-grid offset.  Because the splat uses the SAME tent algebra as
 ``ops/polar_mm.py``, this is algebraically the production ccf table —
-not an approximation (tools/template_proto.py measured 256/256 winner
-parity against ``rotational_shift_search_mm`` on random stacks).
+not an approximation (tests/test_template.py checks winner parity
+against ``rotational_shift_search_mm``).
 
-Why a third engine (measure-first, see tools/template_proto.py):
+Why a third engine:
 
-* The fused Pallas kernel is VPU-bound at ~174 ms per 8192-particle
-  K=8 S=49 search (tools/fused_ablate.py end-of-r3 map) — the
-  frequency-domain ring contraction is elementwise per frequency bin
-  and cannot ride the MXU.  The template formulation spends ~2.6
-  GFLOP/particle of pure bf16 matmul instead and measured 155 ms
-  (71% of v5e bf16 peak) from plain XLA, with no VMEM geometry gates.
+* The frequency-domain ring contraction of the other engines is
+  elementwise per frequency bin; the template formulation spends
+  ~2.6 GFLOP/particle (90 px, K=8, S=49) of pure bf16 matmul instead —
+  the shape cuBLAS and the tensor cores want.
 * It is pure ``dot_general`` + ``fori_loop``, so it partitions under
-  GSPMD — unlike the Pallas kernel (custom calls don't partition), it
-  serves the multi-chip mesh path at full speed.
-* Any ``img_dim``/``ring_len``/K runs (no 128-lane window or scratch
-  budget); cost scales with the template window area.
+  GSPMD over a particle mesh.
+* Any ``img_dim``/``ring_len``/K runs; cost scales with the template
+  window area.
 
 Template build (per iteration — refs change): the correlation over the
 ring angle t is done per frequency against the precomputed splat
@@ -67,8 +64,12 @@ from .dft import irfft_mm, rfft_mm
 from .polar_mm import tent_rows, translate_window_mm
 from .search import SearchResult, _NEG_INF
 
-# soft budget for the materialized template matrix (HBM is 16 GB on v5e;
-# the search itself streams it, so this only bounds residency)
+# f32 contractions state their precision: an unspecified f32 product may
+# run in TF32 (~3 decimal digits) on the GPU
+_HP = jax.lax.Precision.HIGHEST
+
+# soft budget for the padded template blocks (the search streams column
+# chunks from them, so this only bounds residency)
 TEMPLATE_MATRIX_BUDGET_BYTES = 6 << 30
 
 # fractional shift grids: each unique fractional (fy, fx) remainder needs
@@ -147,7 +148,7 @@ def _template_blocks_bytes(cfg, n_classes: int) -> int:
 
 def _splat_spectra_bytes(cfg) -> int:
     """Bytes of the (complex64) splat spectra across fractional groups —
-    the persistent HBM residency of the r5 step-level hoist (4.4 GB at
+    the persistent device residency of the step-level hoist (4.4 GB at
     256 px/ou=100; the batch planner must charge it)."""
     groups, _ = _frac_groups(cfg)
     _, width, _ = template_geometry(cfg)
@@ -172,7 +173,7 @@ def template_supported(cfg, n_classes: int) -> bool:
     ``MAX_FRAC_GROUPS`` unique fractional remainders (each one is a
     separate per-iteration splat-spectra build).  Any
     ``img_dim``/``ring_len``/K is fine otherwise — including
-    ``ring_scheme="eman2"`` (r5): variable Numrinit rings only change
+    ``ring_scheme="eman2"``: variable Numrinit rings only change
     the template build (per-group splat spectra accumulated into the
     maxrin angle spectrum, Crosrng_ms algebra); the search matmul and
     decode are scheme-agnostic.
@@ -225,13 +226,14 @@ def splat_spectra(cfg, frac=(0.0, 0.0)):
             wx = tent_rows(c - lo + coords[..., 0].reshape(-1) + frac[1],
                            width)
             splat = jnp.einsum("qh,qw->qhw", jnp.asarray(wy),
-                               jnp.asarray(wx))
+                               jnp.asarray(wx), precision=_HP)
             splat = splat.reshape(-1, ln, width * width)
             sf = rfft_mm(splat.transpose(0, 2, 1))    # (R_g, Wpx, F_g)
             out.append(sf.transpose(0, 2, 1))         # (R_g, F_g, Wpx)
         return tuple(out)
     wy, wx = _base_tents(cfg, lo, width, frac)
-    splat = jnp.einsum("qh,qw->qhw", jnp.asarray(wy), jnp.asarray(wx))
+    splat = jnp.einsum("qh,qw->qhw", jnp.asarray(wy), jnp.asarray(wx),
+                       precision=_HP)
     splat = splat.reshape(cfg.ring_num, cfg.ring_len, width * width)
     sf = rfft_mm(splat.transpose(0, 2, 1))        # (R, Wpx, F)
     return sf.transpose(0, 2, 1)                  # (R, F, Wpx)
@@ -279,13 +281,15 @@ def _angle_spectra(ref_fw, cfg, sf_g):
         for spec, sfg in zip(ref_fw, sf_g):
             f_g = sfg.shape[1]
             g = g.at[..., :f_g].add(
-                jnp.einsum("krf,rfp->kpf", spec, jnp.conj(sfg)))
+                jnp.einsum("krf,rfp->kpf", spec, jnp.conj(sfg),
+                           precision=_HP))
             if cfg.mirror:
                 h = h.at[..., :f_g].add(
-                    jnp.einsum("krf,rfp->kpf", spec, sfg))
+                    jnp.einsum("krf,rfp->kpf", spec, sfg, precision=_HP))
         return g, h
-    g = jnp.einsum("krf,rfp->kpf", ref_fw, jnp.conj(sf_g))
-    h = jnp.einsum("krf,rfp->kpf", ref_fw, sf_g) if cfg.mirror else None
+    g = jnp.einsum("krf,rfp->kpf", ref_fw, jnp.conj(sf_g), precision=_HP)
+    h = (jnp.einsum("krf,rfp->kpf", ref_fw, sf_g, precision=_HP)
+         if cfg.mirror else None)
     return g, h
 
 
@@ -336,10 +340,9 @@ def build_template_blocks(ref_fw, cfg, sf=None):
             splat_spectra(cfg, frac=frac)
         g, h = _angle_spectra(ref_fw, cfg, sf_g)
         # HIGH (3-pass bf16, ~f32-accurate) halves the irfft's HIGHEST
-        # (6-pass) cost — the dominant build stage (VERDICT r3 next
-        # #1b).  The 1-pass bf16 path measured too noisy: its ~0.4%
-        # template error flips near-tie angle winners on random stacks
-        # (test_template_accumulated_fractional_shifts)
+        # cost — the dominant build stage.  One bf16 pass is too noisy:
+        # its ~0.4% template error flips near-tie angle winners on random
+        # stacks (test_template_accumulated_fractional_shifts)
         _HI = jax.lax.Precision.HIGH
         tbo = irfft_mm(g, n=ring_len, precision=_HI)  # (K, Wpx, L)
         chans = [tbo]
@@ -389,13 +392,15 @@ def build_template_matrix(ref_fw, cfg, sf=None):
                       width * width)
 
 
-# measured fastest on v5e (tools/template_ablate.py tunes this)
-COL_CHUNK_TARGET = 2048
+# columns per streamed chunk: the fastest of the sizes chip_smoke.py's
+# phase 2 times (90 px, K=8, H100: 4096 columns 65.5k particles/s,
+# 2048 50.3k, 1024 48.2k)
+COL_CHUNK_TARGET = 4096
 
 
 def _col_chunk(c_total: int, ring_len: int, target: int | None = None) -> int:
     """Largest divisor of c_total that is a multiple of ring_len and
-    <= target (2048-column chunks measured fastest on v5e)."""
+    <= target (default ``COL_CHUNK_TARGET``)."""
     if target is None:
         target = COL_CHUNK_TARGET
     groups = c_total // ring_len
@@ -431,6 +436,7 @@ def _online_argmax(img_win, cols_fn, c_total: int, chunk: int,
     def body(i, carry):
         best_val, best_idx, best_row = carry
         cols = cols_fn(i)
+        # bf16 x bf16 -> f32: the tensor-core product
         scores = jnp.dot(img_win, cols.T,
                          preferred_element_type=jnp.float32)
         if angle_mask is not None:
@@ -441,7 +447,8 @@ def _online_argmax(img_win, cols_fn, c_total: int, chunk: int,
         onehot = (jnp.arange(n_groups, dtype=jnp.int32)[None, :]
                   == grp[:, None]).astype(scores.dtype)
         row = jnp.einsum("ngl,ng->nl",
-                         scores.reshape(n, n_groups, ring_len), onehot)
+                         scores.reshape(n, n_groups, ring_len), onehot,
+                         precision=_HP)
         take = v > best_val
         return (jnp.where(take, v, best_val),
                 jnp.where(take, a + i * chunk, best_idx),
@@ -519,6 +526,7 @@ def _online_shc(img_win, cols_fn, c_total: int, chunk: int, ring_len: int,
     def body(i, carry):
         best_prio, best_val, best_row = carry
         cols = cols_fn(i)
+        # bf16 x bf16 -> f32: the tensor-core product
         scores = jnp.dot(img_win, cols.T,
                          preferred_element_type=jnp.float32)
         sg = scores.reshape(n, n_groups, ring_len)
@@ -532,7 +540,7 @@ def _online_shc(img_win, cols_fn, c_total: int, chunk: int, ring_len: int,
         val = jnp.take_along_axis(gmax, gidx[:, None], axis=1)[:, 0]
         onehot = (jnp.arange(n_groups, dtype=jnp.int32)[None, :]
                   == gidx[:, None]).astype(sg.dtype)
-        row = jnp.einsum("ngl,ng->nl", sg, onehot)
+        row = jnp.einsum("ngl,ng->nl", sg, onehot, precision=_HP)
         take = minp < best_prio
         return (jnp.where(take, minp, best_prio),
                 jnp.where(take, val, best_val),
@@ -553,14 +561,11 @@ def _search_operands(images, ref_fw, params, cfg, sf, stream):
     slices by default, or a materialized (C, Wpx) matrix with
     ``stream=False``.  Returns ``(win, cols_fn, c_total, chunk)``.
 
-    Default flipped to STREAM in r5 (was: materialize when under the
-    HBM budget): with the splat spectra hoisted, streaming measured
-    FASTER at both tested shapes — 164.4 vs 180.7 ms at 90 px/K=8 and
-    147.8 vs 175.7 ms at 256 px/ou=100 (one session, v5e) — because
-    the materialized path writes + re-reads the full matrix (2.6 GB /
-    4.4 GB respectively) where streaming's dynamic block slices ride
-    the same HBM read the search matmul needs anyway.  Both paths are
-    bit-identical (same slices of the same blocks)."""
+    Streaming is the default: the materialized path writes and re-reads
+    the full matrix (2.6 GB at 90 px/K=8), where streaming's dynamic
+    block slices ride the same memory read the search matmul needs
+    anyway.  Both paths are bit-identical (same slices of the same
+    blocks)."""
     ring_len = cfg.ring_len
     k_num = _ref_k(ref_fw)
     lo, width, _ = template_geometry(cfg)
@@ -589,7 +594,7 @@ def _search_operands(images, ref_fw, params, cfg, sf, stream):
 def template_search_shc(images, ref_fw, params, cfg, previousmax, sf=None,
                         stream: bool | None = None):
     """SHC (stochastic hill climbing) via the template matmul — the same
-    pick as ``ops.search.rotational_shift_search_shc`` riding the MXU
+    pick as ``ops.search.rotational_shift_search_shc`` on the template
     engine (``random_method="SHC"`` semantics,
     test_reffree_gpu_align.py:519-524,724).
 

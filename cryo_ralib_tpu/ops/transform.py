@@ -108,7 +108,7 @@ def _warp_spectrum(images, params: AlignParams, pad_to: int | None = None,
     n, h, w = images.shape
     assert h == w, "transform_batch_mm assumes square images"
     if pad_to is None:
-        # content diagonal h*sqrt(2) must fit; round up to the MXU lane width
+        # content diagonal h*sqrt(2) must fit; round up to a multiple of 128
         pad_to = ((int(np.ceil(h * np.sqrt(2.0))) + 127) // 128) * 128
     c = w // 2
 
@@ -161,10 +161,10 @@ def _warp_spectrum(images, params: AlignParams, pad_to: int | None = None,
 
 def transform_batch_mm(images, params: AlignParams, pad_to: int | None = None,
                        fast: bool = False):
-    """Gather-free ``transform_batch``: FFT-shear rotation on the MXU.
+    """Gather-free ``transform_batch``: FFT-shear rotation as matmuls.
 
     Same warp as ``transform_batch`` (mirror -> rotate by +angle about
-    the integer center -> shift), decomposed TPU-natively:
+    the integer center -> shift), decomposed into matmul-friendly passes:
 
     1. quadrant: angle = 90k + phi, phi in [-45, 45); the 90k part is an
        exact grid permutation (transpose/edge-flip, matching the
@@ -175,7 +175,7 @@ def transform_batch_mm(images, params: AlignParams, pad_to: int | None = None,
        per-row/column sub-pixel translation done as a DFT-matmul phase
        ramp; the (sx, sy) shift rides the first two passes for free;
     3. images are zero-padded to ``pad_to`` (default: next multiple of
-       128, MXU-aligned) so the periodic Fourier translations never wrap
+       128) so the periodic Fourier translations never wrap
        content.
 
     Interpolation is sinc (bandlimited) instead of the reference's
@@ -205,12 +205,13 @@ def rot_shift2d(images, angles, sx, sy, mirror=None, scale=None,
 
     Engines:
       "quadri": quadri-background interpolation via gathers — exact
-        notebook-02 parity; fast on CPU, slow on TPU (no vector gather).
+        notebook-02 parity (the CuPy kernel's structure).
       "shear": gather-free FFT-shear path (sinc interpolation) reusing
         ``transform_batch_mm`` — the identity
         ``R(a)(p-c-s)+c = R(a)(p-c)+c+(-R(a)s)`` maps this op onto the
         inverse-map transform; requires scale == 1.
-      "auto": shear on TPU (when scale is None), quadri elsewhere.
+      "auto": ``select_engine(mode="transform")``; quadri whenever a
+        scale is given.
 
     Args:
       images: (N, H, W).
@@ -221,8 +222,10 @@ def rot_shift2d(images, angles, sx, sy, mirror=None, scale=None,
       (N, H, W).
     """
     if engine == "auto":
-        engine = ("shear" if scale is None
-                  and jax.default_backend() == "tpu" else "quadri")
+        from ..models.steps import select_engine
+
+        engine = ("quadri" if scale is not None
+                  else select_engine(mode="transform"))
     if engine == "shear":
         if scale is not None:
             raise ValueError("shear engine requires scale=1 (None)")

@@ -1,6 +1,6 @@
-"""HBM budget model and host-side batch planning.
+"""Device-memory budget model and host-side batch planning.
 
-TPU analog of the reference's GPU memory machinery
+Counterpart of the reference's GPU memory machinery
 (``pre_align_size_check`` + the Python power-of-2 batch search,
 cuda/gpu_aln_noref.cu:234-349 / test_mref_gpu_align.py:373-380): instead
 of pitched textures and cuFFT workspaces, the model covers the arrays the
@@ -20,27 +20,34 @@ from dataclasses import dataclass
 import numpy as np
 
 
+# The CPU backend reports no memory limit.  Plan CPU runs against a
+# stated 16 GiB host budget: CPU runs are tests and rehearsals, whose
+# stacks are small.
+CPU_PLAN_BYTES = 16 * 1024 ** 3
+
+
 def device_memory_bytes(device=None) -> int:
-    """Usable accelerator memory (bytes). Falls back to 16 GiB (v5e) when
-    the platform does not report it."""
+    """Usable device memory (bytes): the accelerator's reported
+    ``bytes_limit`` (the share of the card this process reserved), or
+    ``CPU_PLAN_BYTES`` on the CPU.  An accelerator that reports no limit
+    is an error — a guessed budget would plan batches that do not fit."""
     import jax
 
     if device is None:
         device = jax.devices()[0]
-    stats = {}
-    try:
-        stats = device.memory_stats() or {}
-    except Exception:
-        pass
-    limit = stats.get("bytes_limit")
-    if limit:
-        return int(limit)
-    return 16 * 1024 ** 3
+    if device.platform == "cpu":
+        return CPU_PLAN_BYTES
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    if not limit:
+        raise RuntimeError(f"{device.device_kind} ({device.platform}) "
+                           "reports no memory limit; pass limit_bytes / "
+                           "batch_size explicitly")
+    return int(limit)
 
 
 @dataclass(frozen=True)
 class StepFootprint:
-    """Per-batch HBM footprint breakdown of one fused align step (bytes)."""
+    """Per-batch device-memory footprint of one align step (bytes)."""
 
     images: int
     translate: int
@@ -61,10 +68,12 @@ class StepFootprint:
 
 def step_footprint(batch: int, n_refs: int, cfg, pad_to: int | None = None,
                    sampler: str = "matmul") -> StepFootprint:
-    """Closed-form memory model of ``align_step`` with the matmul sampler.
+    """Closed-form memory model of ``align_step``: ``sampler="template"``
+    for the template engine, otherwise the tent-matmul intermediates
+    (also charged for gather).
 
     Mirrors what ``pre_align_size_check`` accounts for (texture memory,
-    polar/FFT buffer, ccf table, transfer arrays) in terms of the TPU
+    polar/FFT buffer, ccf table, transfer arrays) in terms of the
     pipeline's actual intermediates.
     """
     f32 = 4
@@ -78,18 +87,12 @@ def step_footprint(batch: int, n_refs: int, cfg, pad_to: int | None = None,
     images = batch * h * h * f32
     # translate_bilinear_mm: per-particle tent matrices + translated copy
     translate = batch * (2 * h * h + h * h) * f32
-    if sampler == "fused":
-        # the fused Pallas kernel keeps polar/spectra/ccf rows in VMEM;
-        # HBM only holds the padded input and the packed result
-        hp = ((h + 7) // 8) * 8
-        polar_chunk = batch * hp * 128 * f32          # padded kernel input
-        spectra = 0
-        ccf_rows = batch * (128 + cfg.ring_len) * f32  # packed result
-    elif sampler == "template":
+    if sampler == "template":
         # template engine: bf16 window (translate_window_mm fuses the
         # slice, no full-image copy), per-chunk score transient, and the
         # batch-independent template blocks/matrix
-        from ..ops.template_search import (_splat_spectra_bytes,
+        from ..ops.template_search import (COL_CHUNK_TARGET,
+                                           _splat_spectra_bytes,
                                            _template_blocks_bytes,
                                            template_geometry)
 
@@ -100,12 +103,11 @@ def step_footprint(batch: int, n_refs: int, cfg, pad_to: int | None = None,
         # the (N, width, width) window (f32 out + bf16 search operand)
         translate = batch * (2 * width * h * 2 + width * h * (4 + 2)
                              + width * width * (4 + 2))
-        polar_chunk = batch * 2048 * f32            # (N, chunk) scores
-        # r5: the search STREAMS column chunks from the padded blocks
-        # (no materialized matrix — measured faster at every tested
-        # shape) and the step-level splat-spectra hoist keeps the
-        # complex64 spectra HBM-resident across calls (4.4 GB at
-        # 256 px/ou=100 — a real residency the plan must charge)
+        polar_chunk = batch * COL_CHUNK_TARGET * f32   # (N, chunk) scores
+        # the search streams column chunks from the padded blocks, and
+        # the step-level splat-spectra hoist keeps the complex64 spectra
+        # resident across calls (4.4 GB at 256 px/ou=100 — a real
+        # residency the plan must charge)
         spectra = _template_blocks_bytes(cfg, n_refs) \
             + _splat_spectra_bytes(cfg)
         ccf_rows = 0
@@ -119,8 +121,8 @@ def step_footprint(batch: int, n_refs: int, cfg, pad_to: int | None = None,
         ccf_rows = 2 * batch * n_dx * n_refs * cfg.ring_len * f32
     # FFT-shear transform: padded image + spectra (complex) x2 buffers
     transform = batch * (4 * pad_to * pad_to + 2 * pad_to * (pad_to + 2)) * f32
-    # constant tent tables (replicated per device).  Only the matmul and
-    # fused paths allocate PolarTables-shaped constants; the template
+    # constant tent tables (replicated per device).  Only the matmul
+    # path allocates PolarTables-shaped constants; the template
     # engine samples via translate_window_mm's traced tents + the blocks
     # already counted above — charging it ~(n_dy+n_dx)*Q*H would shrink
     # the planned batch by a phantom ~quarter-GiB at 256 px.

@@ -2,12 +2,12 @@
 
 The reference scales with MPI data parallelism over particles plus
 node-local communicator surgery to bind ranks to GPUs
-(test_mref_gpu_align.py:1203-1266; SURVEY.md §2.3).  The TPU-native
-replacement is one ``jax.sharding.Mesh`` with a single ``dp`` axis over
-all chips: the stack is sharded on the particle axis, the jitted iteration
-step reduces class sums with an XLA all-reduce over ICI, and there is no
-hand-written send/recv at all.  Multi-host pods reuse the same code via
-``jax.distributed.initialize`` + ``jax.make_mesh`` over global devices.
+(test_mref_gpu_align.py:1203-1266; SURVEY.md §2.3).  The replacement is
+one ``jax.sharding.Mesh`` with a single ``dp`` axis over all GPUs: the
+stack is sharded on the particle axis, the jitted iteration step reduces
+class sums with an XLA all-reduce (NCCL over NVLink), and there is no
+hand-written send/recv at all.  Several hosts reuse the same code via
+``jax.distributed.initialize`` + a mesh over the global devices.
 """
 
 from __future__ import annotations
@@ -21,10 +21,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize_distributed(**kwargs) -> None:
     """Multi-host setup: call once per process before building a mesh.
 
-    Thin wrapper over ``jax.distributed.initialize`` (coordinator address
-    etc. from the environment on TPU pods).  After this,
-    ``make_mesh()`` over ``jax.devices()`` spans the whole pod and the
-    drivers' class-sum all-reduce rides ICI within slices / DCN across —
+    Thin wrapper over ``jax.distributed.initialize``; pass
+    ``coordinator_address``, ``num_processes`` and ``process_id``.
+    After this, ``make_mesh()`` over ``jax.devices()`` spans every host
+    and the drivers' class-sum all-reduce crosses hosts through NCCL —
     the role the reference fills with mpirun + pydusa (SURVEY.md §2.3).
     """
     import jax.distributed
@@ -68,7 +68,7 @@ def shard_stack(images: np.ndarray, mesh: Mesh | None):
     """Pad the stack to a multiple of the mesh size and place it sharded.
 
     Returns (device_array, global_index, valid_mask) — the padding mask
-    keeps class sums and counts exact (the TPU analog of the reference's
+    keeps class sums and counts exact (the counterpart of the reference's
     uneven ``MPI_start_end`` block partition, which needs no padding
     because MPI ranks are not lock-stepped).
     """

@@ -1,6 +1,6 @@
 """Per-particle 2D alignment parameters and transform composition math.
 
-TPU-native equivalent of the reference's ``AlignParam`` struct
+Equivalent of the reference's ``AlignParam`` struct
 (cuda/gpu_aln_common.h:77-83, mirrored in ctypes at
 test_mref_gpu_align.py:112-135) plus the SPHIRE 2D-transform helpers the
 drivers rely on (``combine_params2``, ``inverse_transform2``,

@@ -6,7 +6,7 @@ spectra with ``ringwe`` (``sp_alignment.Numrinit``/``ringwe``,
 test_mref_gpu_align.py:741-750); its GPU path replaces that with
 uniform ring_len=256 and linear (i+1) weights (SURVEY.md §3.3).  This
 module is the production copy of the plan math for the opt-in
-``ring_scheme="eman2"`` config (VERDICT r3 missing #1); the NumPy
+``ring_scheme="eman2"`` config; the NumPy
 golden model keeps its own independent copy in ``utils/oracle.py``
 (tests assert the two agree).
 

@@ -180,6 +180,23 @@ def align_particle_np(img: np.ndarray, refs: np.ndarray, coords: np.ndarray,
                       mode=mode)
 
 
+def align_particle_scores_np(img: np.ndarray, refs: np.ndarray,
+                             coords: np.ndarray, ring_weights: np.ndarray,
+                             shifts: np.ndarray, shift_limit: float):
+    """``align_particle_np`` at zero accumulated shift (mirror on, full
+    rings), plus the best ccf value of every (mirror, reference) pick.
+
+    Returns ``(decoded, scores)``: the decoded dict and an (M, K) array,
+    so a caller can tell a near-tie (two picks scored within rounding of
+    each other) from a wrong pick.
+    """
+    table = _build_table_np(img, refs, coords, ring_weights, shifts,
+                            0.0, 0.0)
+    idx = int(np.argmax(table.reshape(-1)))
+    return (_decode_np(table, idx, shifts, 0.0, 0.0, shift_limit),
+            table.max(axis=(1, 3)))
+
+
 def align_particle_shc_np(img: np.ndarray, refs: np.ndarray,
                           coords: np.ndarray, ring_weights: np.ndarray,
                           shifts: np.ndarray, acc_sx: float, acc_sy: float,

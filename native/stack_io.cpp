@@ -3,7 +3,7 @@
 // Native runtime component filling the data-loader role the reference
 // implements in C++/CUDA (its ctypes-driven gpu_aln_pack.so pipeline and
 // the per-image cudaMemcpy2D upload path, cuda/gpu_aln_noref.cu:1712-1773).
-// On TPU hosts the device upload is jax.device_put; what remains hot on the
+// On the GPU host the device upload is jax.device_put; what remains hot on the
 // host is decoding hundreds of thousands of MRC slices from disk into the
 // float32 staging buffer — fread+astype in Python is single-threaded and
 // copies twice.  This library does positioned reads (pread) of arbitrary

@@ -1,6 +1,6 @@
 """EMAN2 BDB container I/O: real libdb round trips + CLI ingest.
 
-Closes the last P6 gap (VERDICT r2 #9): ``bdb:`` stacks are read
+Closes the last P6 gap: ``bdb:`` stacks are read
 directly (cryo_ralib_tpu/io/bdb.py binds the system libdb through the
 DB 1.85 compat API) instead of erroring with conversion guidance.
 Fixtures are written with the same libdb, so the btree format under

@@ -81,7 +81,7 @@ def test_ctf_context_restores_template():
     """Golden restoration: particles are a template imaged under CTFs with
     opposite-sign passbands (defocus spread); the plain average suffers
     sign cancellation, the CTF path restores the template.  This is the
-    '--CTF changes results' guarantee (VERDICT r1 next #7)."""
+    '--CTF changes results' guarantee."""
     nx, n = 48, 32
     tmpl = asymmetric_templates(1, nx)[0]
     rng = np.random.default_rng(3)
@@ -186,7 +186,7 @@ def test_mref_driver_ctf_changes_results(rng, tmp_path):
         mref_ali2d_tpu(data, base.copy(), CTF=True, **kw)
 
 def test_per_particle_phase_shift_broadcasts():
-    """Volta-style varying phase shifts per particle (ADVICE r2): the
+    """Volta-style varying phase shifts per particle: the
     CTF model must differ per particle when the phase column varies."""
     from cryo_ralib_tpu.ops.ctf_ops import CtfContext
 
@@ -207,7 +207,7 @@ def test_per_particle_phase_shift_broadcasts():
 
 def test_load_ctf_params_requires_defocus(tmp_path):
     """A STAR file without _rlnDefocusU must error, not run an all-zero
-    CTF model (ADVICE r2)."""
+    CTF model."""
     import argparse
 
     from cryo_ralib_tpu.cli.common import load_ctf_params

@@ -94,37 +94,6 @@ def test_delta_matches_oracle(stack, refs, search_fn):
             delta - float(new.angle[i]) % delta < 1e-3
 
 
-def test_delta_fused_matches_matmul(stack, refs):
-    """The fused Pallas kernel takes the mask in-kernel (r4): winners and
-    masked peaks must match the XLA matmul path on a ring_len=256 config
-    (the kernel's specialization)."""
-    from cryo_ralib_tpu.ops.fused_search import fused_search, fused_supported
-
-    cfg = _cfg(ring_len=256)
-    assert fused_supported(cfg, refs.shape[0])
-    mask = delta_angle_mask(cfg.ring_len, 45.0, cfg.mode)
-    params = AlignParams.zeros(stack.shape[0])
-    rfw = prepare_ref_spectra(jnp.asarray(refs), cfg)
-    r_mm = rotational_shift_search_mm(jnp.asarray(stack), rfw, params, cfg,
-                                      fast=True, angle_mask=jnp.asarray(mask))
-    r_fu = fused_search(jnp.asarray(stack), rfw, params, cfg,
-                        interpret=True, angle_mask=mask)
-    np.testing.assert_array_equal(np.asarray(r_fu.best_aidx),
-                                  np.asarray(r_mm.best_aidx))
-    np.testing.assert_array_equal(np.asarray(r_fu.best_sidx),
-                                  np.asarray(r_mm.best_sidx))
-    np.testing.assert_array_equal(np.asarray(r_fu.best_ref),
-                                  np.asarray(r_mm.best_ref))
-    np.testing.assert_array_equal(np.asarray(r_fu.best_mirror),
-                                  np.asarray(r_mm.best_mirror))
-    va = np.asarray(r_mm.best_val)
-    np.testing.assert_allclose(np.asarray(r_fu.best_val), va,
-                               atol=5e-3 * np.abs(va).max())
-    # masked bins never win
-    assert set(np.asarray(r_fu.best_aidx)) <= set(
-        delta_angle_bins(cfg.ring_len, 45.0, cfg.mode).tolist())
-
-
 def test_delta_template_matches_oracle(stack, refs):
     """The template engine's online argmax takes the mask (r4)."""
     from cryo_ralib_tpu.ops.template_search import (template_search,
@@ -157,7 +126,7 @@ def test_delta_template_matches_oracle(stack, refs):
 
 
 def test_delta_step_keeps_fast_sampler(stack, refs):
-    """align_step no longer downgrades fused/template under a mask."""
+    """align_step keeps the template engine under a mask."""
     from cryo_ralib_tpu.models.steps import align_step
 
     cfg = _cfg(ring_len=256)

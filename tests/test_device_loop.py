@@ -50,8 +50,7 @@ def test_device_loop_one_iter_matches_step(rng, sampler):
     """One loop iteration == one align_step + average rebuild.
 
     The matmul case exercises the in-loop fused transform+class-sum path
-    (class_sum_transform_mm) that TPU runs — on CPU it's the same XLA
-    program, so the parity holds there too."""
+    (class_sum_transform_mm) of the tent/template engines."""
     from cryo_ralib_tpu.models.steps import align_step
 
     base = class_templates(1, 64)

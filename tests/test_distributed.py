@@ -2,7 +2,7 @@
 ``jax.distributed.initialize`` build one global mesh and run one
 ``align_step``; the psum'd class sums equal the single-process run.
 
-This exercises the TPU-native replacement for the reference's
+This exercises the replacement for the reference's
 ``mpirun -np N`` orchestration (communicator split + scatter + reduce,
 test_mref_gpu_align.py:1203-1266,1383-1415; SURVEY.md §2.3) at the
 process level, not just on a single-process virtual mesh.
@@ -78,8 +78,7 @@ out1, rid1 = run(make_mesh(), P())
 # 2-D (dp, ref) mesh: the large-K path, across processes
 out2, rid2 = run(make_mesh_2d(4, 2), P("ref"))
 
-# shard_map + matmul: the manual-SPMD mode a TPU mesh actually runs when
-# the fused geometry gate fails (VERDICT r2 weak #7)
+# shard_map + matmul: the manual-SPMD distribution mode
 mesh_sm = make_mesh()
 shard_sm = NamedSharding(mesh_sm, P("dp"))
 step_sm = make_align_step(cfg, k, update_ref=True, mesh=mesh_sm,
@@ -93,9 +92,8 @@ out3 = step_sm(put(data, shard_sm),
 rid3 = np.asarray(multihost_utils.process_allgather(out3.params.ref_id,
                                                     tiled=True))
 
-# GSPMD + template sampler: the multi-chip fast path a TPU mesh actually
-# runs (pure dot_general partitions over 'dp'; auto picks it on
-# integer-grid TPU meshes — ops/template_search.py)
+# GSPMD + template sampler: the GPU mesh's "auto" engine (pure
+# dot_general partitions over 'dp' — ops/template_search.py)
 mesh_tm = make_mesh()
 shard_tm = NamedSharding(mesh_tm, P("dp"))
 step_tm = make_align_step(cfg, k, update_ref=True, mesh=mesh_tm,

@@ -4,8 +4,8 @@ The CPU twin — the semantics contract of SURVEY.md §3.3 — aligns over
 ``Numrinit`` variable-length rings with ``ringwe`` weights
 (test_mref_gpu_align.py:741-750); the reference GPU path (and this
 rebuild's default) uses the uniform-256 CUDA scheme.  Since r4 the
-EMAN2 convention is an opt-in production option (VERDICT r3 missing
-#1): ``ops/eman_search.py`` must match the oracle's
+EMAN2 convention is an opt-in production option: ``ops/eman_search.py``
+must match the oracle's
 ``align_particle_eman_np`` exactly.
 """
 
@@ -60,13 +60,14 @@ def test_eman_config_derives_ring_len():
     assert cfg.ring_len == rings[-1][1]          # maxrin
     np.testing.assert_allclose(cfg.eman_ring_weights,
                                oracle.ringwe(rings), rtol=1e-6)
-    # fused gates itself out; the template MXU engine admits eman2 (r5);
+    # the template engine admits eman2, so the GPU selector picks it;
     # H-mode rejected
-    from cryo_ralib_tpu.ops.fused_search import fused_supported
+    from cryo_ralib_tpu.models.steps import select_engine
     from cryo_ralib_tpu.ops.template_search import template_supported
 
-    assert not fused_supported(cfg, 3)
     assert template_supported(cfg, 3)
+    assert select_engine(cfg, 3, platform="gpu") == "template"
+    assert select_engine(cfg, 3, platform="cpu") == "gather"
     with pytest.raises(ValueError, match="full rings"):
         _cfg(mode="H")
 
@@ -102,7 +103,7 @@ def test_eman_search_matches_oracle(stack, refs, sampler):
     dict(shift_step=0.5, shift_rng_x=1.0, shift_rng_y=1.0),  # fractional
 ])
 def test_eman_template_engine_matches_matmul(stack, refs, kw):
-    """r5: the eman2 scheme on the template MXU engine — per-ring-group
+    """The eman2 scheme on the template engine — per-ring-group
     splat spectra accumulated into the maxrin angle spectrum
     (ops/template_search._angle_spectra) must reproduce the
     ``rotational_shift_search_eman`` table up to bf16 near-ties, with
@@ -138,18 +139,24 @@ def test_eman_template_engine_matches_matmul(stack, refs, kw):
     assert gap.max() <= 5e-3
 
 
-def test_eman_step_auto_picks_template_on_tpu_geometry(stack, refs):
-    """align_step(sampler='template') runs the eman2 scheme end to end
-    (counts conserved; same class assignments as the matmul engine)."""
+def test_eman_step_auto_picks_template_on_gpu_geometry(stack, refs,
+                                                      monkeypatch):
+    """align_step(sampler='auto') on the GPU branch runs the eman2 scheme
+    on the template engine end to end (counts conserved; same class
+    assignments as the matmul engine)."""
+    from cryo_ralib_tpu.models import steps
     from cryo_ralib_tpu.models.steps import align_step
 
     cfg = _cfg()
     n = stack.shape[0]
     gidx = jnp.arange(n, dtype=jnp.int32)
     valid = jnp.ones((n,), jnp.float32)
+    monkeypatch.setattr(steps.jax, "default_backend", lambda: "gpu")
+    assert steps.select_engine(cfg, refs.shape[0]) == "template"
     out_t = align_step(jnp.asarray(stack), jnp.asarray(refs),
                        AlignParams.zeros(n), gidx, valid, cfg,
-                       n_classes=refs.shape[0], sampler="template")
+                       n_classes=refs.shape[0], sampler="auto")
+    monkeypatch.undo()
     out_m = align_step(jnp.asarray(stack), jnp.asarray(refs),
                        AlignParams.zeros(n), gidx, valid, cfg,
                        n_classes=refs.shape[0], sampler="matmul",
@@ -170,10 +177,11 @@ def test_eman_step_and_sampler_gate(stack, refs):
                      AlignParams.zeros(n), gidx, valid, cfg,
                      n_classes=refs.shape[0], sampler="gather")
     assert int(out.counts.sum()) == n
+    # an engine name outside the selector's set is rejected
     with pytest.raises(ValueError, match="eman2"):
         align_step(jnp.asarray(stack), jnp.asarray(refs),
                    AlignParams.zeros(n), gidx, valid, cfg,
-                   n_classes=refs.shape[0], sampler="fused")
+                   n_classes=refs.shape[0], sampler="bogus")
 
 
 def test_eman_delta_mask_matches_oracle(stack, refs):
@@ -236,8 +244,7 @@ def test_eman_scheme_with_ir_rs(stack, refs):
 
 def test_mref_driver_eman_scheme_end_to_end(tmp_path, stack, refs):
     """One driver iteration under the eman2 scheme reproduces the oracle
-    per-particle search + decode (VERDICT r3 done-criterion: mref with
-    the EMAN2 scheme matches align_particle_eman_np end-to-end)."""
+    per-particle search + decode."""
     from cryo_ralib_tpu.models.mref import mref_ali2d_tpu
     from cryo_ralib_tpu.ops.masks import model_circle, normalize_mask
 

@@ -1,6 +1,5 @@
 """Notebook-00 closing glue (examples/08): params table -> aligned stack
-export + class-average reconstruction (VERDICT r4 next #8, SURVEY.md P13
-— the ``sxheader --zero`` / ``sxtransform2d`` / ``e2proc2d`` roles)."""
+export + class-average reconstruction."""
 
 import importlib.util
 import os

@@ -1,10 +1,10 @@
 """Large-K reference-axis sharding: the 2-D ('dp', 'ref') GSPMD mesh
 produces the same StepOutput as the replicated 1-D 'dp' run.
 
-This is the TPU-native stand-in for the reference's per-ref ccf slot
+This is the stand-in for the reference's per-ref ccf slot
 layout (cuda/gpu_aln_noref.cu:1009-1143, `cu_ccf_mult_m` writing every
 sbj x ref pair) at reference counts where the replicated ref stack and
-its ring spectra would dominate HBM (SURVEY.md §5 "large-K mref").
+its ring spectra would dominate device memory (SURVEY.md §5 "large-K mref").
 """
 
 import numpy as np

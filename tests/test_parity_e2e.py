@@ -1,8 +1,8 @@
 """End-to-end numerical parity: the full mref driver vs a pure-NumPy
 oracle loop implementing the CUDA semantics step by step.
 
-This is the north-star check (BASELINE.json): alignment parameters from
-the TPU pipeline must match the reference semantics to <= 1e-3 after
+This is the north-star check (BASELINE.md): alignment parameters from
+the JAX pipeline must match the reference semantics to <= 1e-3 after
 multiple iterations with accumulated shifts."""
 
 import numpy as np

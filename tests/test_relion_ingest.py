@@ -3,7 +3,7 @@
 Runs the examples/05 flow on a small project: MRC header round trip,
 ``index@stack.mrcs`` resolution via LazyImage offsets, optics-derived
 apix, per-particle CTF rows (incl. Volta phase shifts) and a CTF-aware
-mref alignment (VERDICT r2 "missing #5").
+mref alignment.
 """
 
 import importlib.util

@@ -1,5 +1,5 @@
-"""Round-2 correctness fixes: fit_tanh coverage, fused-kernel geometry
-gates, loud flag rejection, bdb error, multi-leaf force barrier."""
+"""Round-2 correctness fixes: fit_tanh coverage, loud flag rejection,
+bdb error, multi-leaf force barrier."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,6 @@ import jax.numpy as jnp
 
 from cryo_ralib_tpu.config import AlignConfig
 from cryo_ralib_tpu.ops.fsc import fit_tanh
-from cryo_ralib_tpu.ops.fused_search import fused_supported
 from cryo_ralib_tpu.utils.profiling import force
 
 
@@ -56,57 +55,6 @@ class TestFitTanh:
         assert np.isfinite(fl) and 0.01 <= fl <= 0.49
 
 
-class TestFusedSupportedGates:
-    def _cfg(self, **kw):
-        base = dict(img_dim=90, ring_num=36, ring_len=256, shift_step=1.0,
-                    shift_rng_x=3.0, shift_rng_y=3.0)
-        base.update(kw)
-        return AlignConfig(**base)
-
-    def test_standard_config_supported(self):
-        assert fused_supported(self._cfg(), 8)
-
-    def test_large_box_windowed_or_falls_back(self):
-        # boxes >128 px run fused through the 128-wide central x-window
-        # when the ring extent fits (r3); beyond that, matmul fallback
-        assert fused_supported(self._cfg(img_dim=160), 4)
-        assert not fused_supported(
-            self._cfg(img_dim=160, ring_num=70, shift_rng_x=3.0,
-                      shift_rng_y=3.0), 4)
-
-    def test_boundary_box_supported(self):
-        assert fused_supported(self._cfg(img_dim=128), 4)
-
-    def test_few_ring_blocks_supported(self):
-        # ADVICE r1 (low) originally forced a fallback here because the
-        # banded kernel hard-coded three class sections; the kernel now
-        # takes a variable class count clamped to the ring-block count,
-        # so ring_num=4 (2 ring blocks) runs fused — verify it works.
-        import jax.numpy as jnp
-
-        from cryo_ralib_tpu.ops.fused_search import fused_search
-        from cryo_ralib_tpu.ops.search import (prepare_ref_spectra,
-                                               rotational_shift_search_mm)
-        from cryo_ralib_tpu.params import AlignParams
-
-        cfg = self._cfg(ring_num=4, shift_rng_x=1.0, shift_rng_y=1.0)
-        assert fused_supported(cfg, 4)
-        rng = np.random.default_rng(0)
-        imgs = jnp.asarray(rng.standard_normal((8, 90, 90)).astype(np.float32))
-        refs = jnp.asarray(rng.standard_normal((2, 90, 90)).astype(np.float32))
-        rfw = prepare_ref_spectra(refs, cfg)
-        p = AlignParams.zeros(8)
-        r_mm = rotational_shift_search_mm(imgs, rfw, p, cfg, fast=True)
-        r_fu = fused_search(imgs, rfw, p, cfg, interpret=True)
-        np.testing.assert_array_equal(np.asarray(r_mm.best_ref),
-                                      np.asarray(r_fu.best_ref))
-        np.testing.assert_array_equal(np.asarray(r_mm.best_sidx),
-                                      np.asarray(r_fu.best_sidx))
-
-    def test_wrong_ring_len_falls_back(self):
-        assert not fused_supported(self._cfg(ring_len=128), 4)
-
-
 class TestFlagHonesty:
     def _args(self, **kw):
         import argparse
@@ -143,7 +91,7 @@ class TestFlagHonesty:
         {"Fourvar": True}, {"dst": 90.0}, {"random_method": "SCF"},
     ])
     def test_r3_capability_flags_accepted(self, kw):
-        # real capability since r3 (VERDICT r2 items 5/7); must validate
+        # real capability since r3; must validate
         from cryo_ralib_tpu.cli.common import validate_reffree_flags
 
         validate_reffree_flags(self._args(**kw))  # no raise

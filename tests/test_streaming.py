@@ -1,5 +1,5 @@
 """Streaming (host-batched) execution equals resident execution, and the
-HBM batch planner behaves sanely."""
+device-memory batch planner behaves sanely."""
 
 import numpy as np
 import pytest

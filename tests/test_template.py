@@ -176,7 +176,7 @@ def test_template_streamed_matches_materialized(stack, refs):
 
 
 def test_template_large_k_streams():
-    """A K large enough that the materialized matrix exceeds the HBM
+    """A K large enough that the materialized matrix exceeds the memory
     budget still passes the gate (the blocks fit; the search streams)."""
     from cryo_ralib_tpu.ops.template_search import (
         TEMPLATE_MATRIX_BUDGET_BYTES, _template_matrix_bytes)
